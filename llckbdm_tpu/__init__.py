@@ -1,13 +1,13 @@
-"""llckbdm_tpu — TPU-native KBDM / LL-KBDM structured linear-algebra library.
+"""llckbdm_tpu — KBDM / LL-KBDM structured linear-algebra library for GPUs.
 
 A from-scratch JAX/XLA rebuild of the capabilities of
 ``danilomendesdias/llckbdm`` (see SURVEY.md): quantification of MRS
 time-domain signals as sums of exponentially damped complex sinusoids via the
 Krylov Basis Diagonalization Method, with the LL-KBDM multi-m sweep +
-density-clustering consolidation — redesigned for TPUs (complex-as-real-pairs
-arithmetic, randomized Takagi SVD of Hankel operators, Jacobi eigensolvers,
-closed-form Vandermonde least squares, masked fixed-shape batching, mesh
-sharding for MRSI voxel grids).
+density-clustering consolidation — batched for an accelerator
+(complex-as-real-pairs arithmetic, randomized Takagi SVD of Hankel operators,
+a Jacobi eigensolver kernel, closed-form Vandermonde least squares, masked
+fixed-shape batching, mesh sharding for MRSI voxel grids).
 
 Public API (L3 layer, SURVEY.md §1):
 

@@ -1,14 +1,12 @@
 """Complex arithmetic as explicit (real, imag) float32/float64 pairs.
 
-The target TPU backend exposes no complex dtype (probed at build time: every
-complex64 HLO fails with UNIMPLEMENTED), so the whole framework represents a
-complex array as a ``CArr(re, im)`` pair of real arrays.  Complex matmuls
-lower to real MXU matmuls; elementwise complex ops lower to VPU ops.  This is
-also what XLA itself would do internally — doing it explicitly keeps every op
-on the supported HLO subset and gives us control over the matmul count.
+The framework represents a complex array as a ``CArr(re, im)`` pair of real
+arrays: complex matmuls are four real matmuls, elementwise complex ops are
+real elementwise ops, and the matmul count is explicit.  The small dense
+linear-algebra calls (ops.linalg) cross to native complex64 at the call.
 
 All functions are shape-polymorphic over leading batch dimensions and work
-under jit/vmap/shard_map on TPU and CPU alike.
+under jit/vmap/shard_map on GPU and CPU alike.
 """
 from __future__ import annotations
 
@@ -74,7 +72,7 @@ def cimag(x: CArr) -> jax.Array:
 
 
 # ---------------------------------------------------------------------------
-# Elementwise ops (VPU)
+# Elementwise ops
 # ---------------------------------------------------------------------------
 
 def cadd(a: CArr, b: CArr) -> CArr:
@@ -152,13 +150,13 @@ def cwhere(mask, a: CArr, b: CArr) -> CArr:
 
 
 # ---------------------------------------------------------------------------
-# Matmul (MXU) and transposes
+# Matmul and transposes
 # ---------------------------------------------------------------------------
 
 def _mm(a, b):
-    # Precision.HIGHEST: JAX's TPU default is bf16 MXU passes (~1e-3 rel
-    # error), which destroys the SVD tail and rank masking.  HIGHEST uses
-    # bf16x6 passes for true-f32 accuracy (measured necessary on v5e).
+    # Precision.HIGHEST: a default-precision f32 matmul may run in reduced
+    # precision (TF32 on the GPU, ~1e-3 relative), which destroys the SVD
+    # tail and rank masking.
     return jnp.matmul(a, b, preferred_element_type=jnp.float32,
                       precision=jax.lax.Precision.HIGHEST)
 
@@ -166,7 +164,7 @@ def _mm(a, b):
 def cmatmul(a: CArr, b: CArr) -> CArr:
     """Complex matmul as 4 real matmuls (accuracy-first: a 3-mult Karatsuba
     variant was measured and rejected — its extra rounding is unacceptable
-    on the SVD/refinement paths and the MXU saving never showed up)."""
+    on the SVD/refinement paths)."""
     return CArr(_mm(a.re, b.re) - _mm(a.im, b.im),
                 _mm(a.re, b.im) + _mm(a.im, b.re))
 
@@ -220,8 +218,8 @@ def cpow_int(a: CArr, n: jax.Array) -> CArr:
     """a**n for integer-valued real exponent array n (via exp(n log a)).
 
     For STATIC integer n prefer :func:`cpow_fixed`/:func:`cpowers`: this
-    form costs 5 VPU transcendentals per element (log, atan2, exp, sin,
-    cos), which dominated the poles->lines stage (measured r05)."""
+    form costs 5 transcendentals per element (log, atan2, exp, sin,
+    cos)."""
     la = clog(a)
     return cexp(CArr(la.re * n, la.im * n))
 

@@ -4,7 +4,7 @@ SURVEY.md §7 hard part 5: the LL-KBDM consolidation step needs DBSCAN over
 the pooled line lists (~S*p points per voxel) *inside* jit, with static
 shapes, vmappable over the voxel batch.  The classical algorithm maps to:
 
-  1. pairwise squared distances (MXU/VPU, O(n^2))
+  1. pairwise squared distances (O(n^2))
   2. neighbor counts -> core mask (count >= min_samples, self included —
      sklearn semantics)
   3. connected components of the core-core eps-graph via min-label
@@ -87,9 +87,8 @@ def dbscan_1d(x: jax.Array, valid: jax.Array, eps: float,
     Replaces :func:`dbscan` on the pipeline hot path whenever the feature
     space is one-dimensional (damping_weight == 0, the default: the only
     clustering feature is f * dwell).  The O(n^2) adjacency matrix and its
-    while_loop label propagation cost ~35 ms/launch of pure HBM traffic at
-    bench shapes (V=512, n=560); this formulation needs one sort and a few
-    O(n) passes.
+    while_loop label propagation move O(n^2) bytes per voxel; this
+    formulation needs one sort and a few O(n) passes.
 
     Identical semantics to :func:`dbscan` — up to float rounding at EXACT
     eps ties: the range counts here compare ``xs`` against the rounded sums
@@ -198,11 +197,7 @@ def compact_labels(labels: jax.Array, max_clusters: int):
     Clusters are ordered by (descending size, ascending root index) so the
     output is deterministic.
 
-    The top_k here is NOT a sort pathology worth removing: an O(n^2)
-    rank-selection rewrite (the trick that wins for masked_median) was
-    measured r05 at V=1024, n=560 — top_k 3.5 ms vs rank-compare 14 ms
-    marginal (the (n, n) i32 compare+reduce materializes more HBM traffic
-    than the k=32 partial sort costs) — and was reverted.
+    A partial sort (top_k with k = C) picks the C largest clusters.
     """
     n = labels.shape[0]
     is_clustered = labels >= 0
@@ -227,10 +222,8 @@ def masked_median(values: jax.Array, member: jax.Array) -> jax.Array:
     Rank-selection, not sort: the within-cluster stable rank of every
     element is ONE (n, n) 0/1 matmul against the membership matrix, and
     the two middle order statistics are one-hot selected from it.  Exact:
-    0/1 values are exact in bf16 MXU passes and counts (<= n << 2^24) are
-    exact in the f32 accumulator.  On TPU a sort lowers to a multi-pass
-    bitonic network; the five medians of the consolidation stage measured
-    ~38 ms/launch sorted vs ~10 ms this way (V=512, n=560).
+    0/1 values and counts (<= n << 2^24) are exact in any matmul precision
+    with an f32 accumulator.
     """
     n, c = member.shape
     idx = jnp.arange(n, dtype=jnp.int32)

@@ -1,31 +1,22 @@
-"""Batched Jacobi eigensolvers built from gather/scatter + VPU ops.
+"""Batched eigenvalues of complex-symmetric matrices (the KBDM reduced
+problem) by Jacobi rotations.
 
-The target backend has no LAPACK-style HLO (no Eigh/SVD/QR — probed at build
-time), so these solvers are authored from scratch (SURVEY.md §2 'native
-components': the TPU build must supply its own dense-linalg kernels).
+A = A^T (NOT Hermitian): complex-orthogonal rotations (c^2 + s^2 = 1, c and
+s complex) drive the off-diagonal part to zero; the diagonal converges to
+the complex eigenvalues.  The FDM literature solves the same problem with
+the same transforms.  XLA has no batched eigensolver for this class (its
+``eig`` is a general nonsymmetric LAPACK/cuSOLVER call per matrix), and the
+pipeline solves V*S tiny matrices per fit.
 
-Two variants, both one-sided-rotation *parallel* Jacobi using a round-robin
-tournament ordering (n-1 rounds of n/2 disjoint 2x2 rotations per sweep):
+Two implementations of one rotation sequence:
 
-* :func:`eigh` — complex **Hermitian** A = A^H: unitary rotations, real
-  eigenvalues, eigenvectors accumulated.  Used for Gram-matrix
-  orthonormalization (Lowner), Rayleigh-Ritz, and Takagi phase-fixing.
-* :func:`eig_cs` — complex **symmetric** A = A^T (NOT Hermitian): complex-
-  orthogonal rotations (c^2 + s^2 = 1, c,s complex), complex eigenvalues.
-  This is the KBDM reduced eigenproblem; the FDM literature solves the same
-  complex-symmetric problem with complex-orthogonal transforms.
+* GPU: the Pallas Triton kernel in ops.eig_kernel — each program holds a
+  tile of matrices in registers for all sweeps;
+* CPU, and the kernel's reference: the ``lax.scan`` below, one rotation per
+  step, vectorized over the vmapped batch.
 
-Each rotation round applies n/2 disjoint rotations to rows then columns via
-gather -> vectorized coefficient math -> scatter, i.e. O(n^2) VPU work per
-round instead of O(n^3) matmuls.  Rotations within a round commute (disjoint
-index pairs), so the batch (voxels x m-sweep) vmaps cleanly.
-
-Oracle counterparts: numpy.linalg.eigh / scipy.linalg.eig.
-
-On the TPU backend both entry points dispatch to the Pallas kernels in
-ops.pallas_jacobi (one kernel per solve, batch in the lane axis) — the
-scan formulation below is the CPU/virtual-mesh fallback and the
-cross-check for the kernels.
+The choice is made at trace time by :func:`llckbdm_tpu.platform.platform`.
+Oracle counterpart: scipy.linalg.eigvals.
 """
 from __future__ import annotations
 
@@ -35,188 +26,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..platform import platform
+from . import eig_kernel
 from .cplx import CArr
 
-
-_backend_override: str | None = None
-
-
-class force_backend:
-    """Pin :func:`_tpu_backend`'s answer inside a ``with`` block.
-
-    Used by the jitted pipeline factories (pipeline.llckbdm._llc_kbdm_jit,
-    parallel.grid._fit_grid_jit, ...): they key their lru_caches on the
-    backend name AND pin tracing to it with this context, so a process that
-    switches default device between calls can never reuse a trace holding
-    the other backend's kernel path (Pallas calls that fail to lower on
-    CPU, or the slow scan path on TPU).
-    """
-
-    def __init__(self, platform: str | None):
-        self.platform = platform
-
-    def __enter__(self):
-        global _backend_override
-        self._prev = _backend_override
-        _backend_override = self.platform
-        return self
-
-    def __exit__(self, *exc):
-        global _backend_override
-        _backend_override = self._prev
-        return False
-
-
-def _tpu_backend() -> bool:
-    """True when computations dispatch to a TPU by default.
-
-    Checked per call (not cached): honors ``jax.default_device(...)``
-    contexts / ``jax.config.update("jax_default_device", ...)`` and config
-    changes made after import, so solver code explicitly pinned to CPU in
-    a TPU-visible process takes the scan path instead of failing to lower
-    the Pallas kernels.  A :class:`force_backend` context overrides both.
-    """
-    if _backend_override is not None:
-        return _backend_override == "tpu"
-    try:
-        dev = jax.config.jax_default_device
-        if dev is not None:
-            return dev.platform == "tpu"
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
-
-
-def backend_name() -> str:
-    """'tpu' or 'cpu' — the hashable lru_cache key for jitted factories."""
-    return "tpu" if _tpu_backend() else "cpu"
-
-
-@functools.lru_cache(maxsize=None)
-def _tournament_schedule(n: int):
-    """Round-robin pairings: (n-1, n/2) index arrays (ii < jj elementwise)."""
-    assert n % 2 == 0, "Jacobi size must be even (pad with zero block)"
-    order = list(range(n))
-    rounds_i, rounds_j = [], []
-    for _ in range(n - 1):
-        ii = [min(order[k], order[n - 1 - k]) for k in range(n // 2)]
-        jj = [max(order[k], order[n - 1 - k]) for k in range(n // 2)]
-        rounds_i.append(ii)
-        rounds_j.append(jj)
-        # rotate all but the first element
-        order = [order[0]] + [order[-1]] + order[1:-1]
-    return np.asarray(rounds_i, np.int32), np.asarray(rounds_j, np.int32)
-
-
-def _pad_to_even(a: CArr):
-    n = a.re.shape[-1]
-    if n % 2 == 0:
-        return a, n
-    pad = [(0, 0)] * (a.re.ndim - 2) + [(0, 1), (0, 1)]
-    return CArr(jnp.pad(a.re, pad), jnp.pad(a.im, pad)), n
-
-
-# ---------------------------------------------------------------------------
-# Hermitian eigendecomposition
-# ---------------------------------------------------------------------------
-
-def _eigh_single(a: CArr, sweeps: int):
-    """Jacobi eigh of one (n, n) Hermitian matrix. Returns (w desc, V)."""
-    a, n_orig = _pad_to_even(a)
-    n = a.re.shape[-1]
-    pi, pj = _tournament_schedule(n)
-    pi, pj = jnp.asarray(pi), jnp.asarray(pj)
-    n_rounds = pi.shape[0]
-
-    def rotate(carry, r):
-        ar, ai, vr, vi = carry
-        ii, jj = pi[r], pj[r]                       # (q,)
-        aii = ar[ii, ii]
-        ajj = ar[jj, jj]
-        br, bi = ar[ii, jj], ai[ii, jj]
-        babs = jnp.hypot(br, bi)
-        diag_scale = jnp.hypot(aii, ajj) + 1e-30
-        skip = babs <= 1e-7 * diag_scale
-        safe_b = jnp.where(skip, 1.0, babs)
-        # phase w = b / |b|
-        wr = jnp.where(skip, 1.0, br / safe_b)
-        wi = jnp.where(skip, 0.0, bi / safe_b)
-        tau = (ajj - aii) / (2.0 * safe_b)
-        t = jnp.sign(tau) / (jnp.abs(tau) + jnp.sqrt(1.0 + tau * tau))
-        t = jnp.where(tau == 0.0, 1.0, t)
-        c = jax.lax.rsqrt(1.0 + t * t)
-        s = c * t
-        c = jnp.where(skip, 1.0, c)
-        s = jnp.where(skip, 0.0, s)
-
-        # Row update (J^H A): row_i' = c ri - s w rj ; row_j' = s ri + c w rj
-        # (w complex, c/s real)
-        ri_r, ri_i = ar[ii, :], ai[ii, :]
-        rj_r, rj_i = ar[jj, :], ai[jj, :]
-        wrj_r = wr[:, None] * rj_r - wi[:, None] * rj_i
-        wrj_i = wr[:, None] * rj_i + wi[:, None] * rj_r
-        ni_r = c[:, None] * ri_r - s[:, None] * wrj_r
-        ni_i = c[:, None] * ri_i - s[:, None] * wrj_i
-        nj_r = s[:, None] * ri_r + c[:, None] * wrj_r
-        nj_i = s[:, None] * ri_i + c[:, None] * wrj_i
-        ar = ar.at[ii, :].set(ni_r).at[jj, :].set(nj_r)
-        ai = ai.at[ii, :].set(ni_i).at[jj, :].set(nj_i)
-
-        # Column update (A J): col_i' = c ci - s conj(w) cj ;
-        #                      col_j' = s ci + c conj(w) cj
-        def colup(mr, mi):
-            ci_r, ci_i = mr[:, ii], mi[:, ii]
-            cj_r, cj_i = mr[:, jj], mi[:, jj]
-            wcj_r = wr[None, :] * cj_r + wi[None, :] * cj_i
-            wcj_i = wr[None, :] * cj_i - wi[None, :] * cj_r
-            mi_r = c[None, :] * ci_r - s[None, :] * wcj_r
-            mi_i = c[None, :] * ci_i - s[None, :] * wcj_i
-            mj_r = s[None, :] * ci_r + c[None, :] * wcj_r
-            mj_i = s[None, :] * ci_i + c[None, :] * wcj_i
-            mr = mr.at[:, ii].set(mi_r).at[:, jj].set(mj_r)
-            mi = mi.at[:, ii].set(mi_i).at[:, jj].set(mj_i)
-            return mr, mi
-
-        ar, ai = colup(ar, ai)
-        vr, vi = colup(vr, vi)
-        return (ar, ai, vr, vi), None
-
-    v0 = jnp.eye(n, dtype=a.re.dtype)
-    carry = (a.re, a.im, v0, jnp.zeros_like(v0))
-    rounds = jnp.tile(jnp.arange(n_rounds), sweeps)
-    carry, _ = jax.lax.scan(rotate, carry, rounds)
-    ar, ai, vr, vi = carry
-
-    w = jnp.diagonal(ar)
-    order = jnp.argsort(-w)
-    w = w[order][:n_orig]
-    v = CArr(vr[:, order][:n_orig, :n_orig], vi[:, order][:n_orig, :n_orig])
-    return w, v
-
-
-def eigh(a: CArr, sweeps: int = 10):
-    """Batched Hermitian eigendecomposition.
-
-    a : CArr (..., n, n) with a = a^H.
-    Returns (w, v): eigenvalues (..., n) sorted descending and unitary
-    eigenvectors (..., n, n) with a ~= v diag(w) v^H.
-    """
-    # NOTE: no Pallas dispatch here — pallas_jacobi.eigh exists but its
-    # per-pair column write-back (Hermitian consistency of the stored
-    # matrix) relays out through sublanes and measured SLOWER than this
-    # scan on v5e.  The TPU hot path avoids Hermitian eigh entirely via
-    # ops.pallas_linalg (one-sided Jacobi SVD + Cholesky), so this scan
-    # only runs on CPU.
-    fn = functools.partial(_eigh_single, sweeps=sweeps)
-    ndim = a.re.ndim
-    for _ in range(ndim - 2):
-        fn = jax.vmap(fn)
-    return fn(a)
-
-
-# ---------------------------------------------------------------------------
-# Complex-symmetric eigenvalues (the KBDM reduced problem)
-# ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
 def _cyclic_pairs(n: int):
@@ -226,8 +39,9 @@ def _cyclic_pairs(n: int):
     return np.asarray(ii, np.int32), np.asarray(jj, np.int32)
 
 
-def _eig_cs_single(a: CArr, sweeps: int, with_resid: bool = False):
-    """Jacobi eigenvalues of one (n, n) complex-symmetric matrix.
+def _eig_cs_single(a: CArr, sweeps: int):
+    """Jacobi eigenvalues of one (n, n) complex-symmetric matrix and the
+    final off-diagonal Frobenius norm.
 
     Rotations are applied SEQUENTIALLY (one pair at a time).  Unlike the
     unitary (Hermitian) case, complex-orthogonal rotations are not
@@ -314,11 +128,9 @@ def _eig_cs_single(a: CArr, sweeps: int, with_resid: bool = False):
     carry, _ = jax.lax.scan(rotate, carry, ks)
     ar, ai = carry
     mu = CArr(jnp.diagonal(ar), jnp.diagonal(ai))
-    if not with_resid:
-        return mu
     # off-diagonal energy by MASK (not total - diag, which cancels to 0 in
     # f32 once the off-diag norm is below ~sqrt(eps) of the diagonal —
-    # matches the Pallas kernel's masked accumulation)
+    # matches the kernel's masked accumulation)
     offm = 1.0 - jnp.eye(ar.shape[-1], dtype=ar.dtype)
     resid = jnp.sqrt(jnp.sum((ar * ar + ai * ai) * offm))
     return mu, resid
@@ -330,14 +142,7 @@ def eig_cs(a: CArr, sweeps: int = 10) -> CArr:
     Returns CArr (..., n) of eigenvalues (unordered).  The input MUST be
     (numerically) complex symmetric; callers symmetrize first.
     """
-    if _tpu_backend():
-        from . import pallas_jacobi
-        return pallas_jacobi.eig_cs(a, sweeps=sweeps)
-    fn = functools.partial(_eig_cs_single, sweeps=sweeps)
-    ndim = a.re.ndim
-    for _ in range(ndim - 2):
-        fn = jax.vmap(fn)
-    return fn(a)
+    return eig_cs_resid(a, sweeps=sweeps)[0]
 
 
 def eig_cs_resid(a: CArr, sweeps: int = 10):
@@ -347,10 +152,9 @@ def eig_cs_resid(a: CArr, sweeps: int = 10):
     convergence counter (SURVEY.md §5 metrics row), measured on the ACTUAL
     input matrices, so bench.py can surface production convergence.
     """
-    if _tpu_backend():
-        from . import pallas_jacobi
-        return pallas_jacobi.eig_cs_resid(a, sweeps=sweeps)
-    fn = functools.partial(_eig_cs_single, sweeps=sweeps, with_resid=True)
+    if platform() == "gpu":
+        return eig_kernel.eig_cs_resid(a, sweeps=sweeps)
+    fn = functools.partial(_eig_cs_single, sweeps=sweeps)
     ndim = a.re.ndim
     for _ in range(ndim - 2):
         fn = jax.vmap(fn)

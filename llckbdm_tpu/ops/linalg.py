@@ -1,65 +1,65 @@
-"""Dense structured linear algebra built on the Jacobi eigh core.
+"""Small batched Hermitian linear algebra on the complex-as-real-pairs layout.
 
-The backend has no QR/Cholesky/SVD/solve HLOs, so everything reduces to
-matmuls (MXU) plus the Jacobi Hermitian eigendecomposition (ops.jacobi.eigh):
+Plain XLA linear algebra — cuSOLVER on the GPU, LAPACK on the CPU, one
+formulation for both.  Operands cross to native complex64 at the call and
+back to (re, im) pairs after it.
 
-* :func:`lowner_orth`    — orthonormalize tall-skinny blocks (Lowner /
-                           symmetric orthogonalization via the Gram matrix);
-                           replaces tall-skinny QR.
+* :func:`cholqr_rinv`    — R^{-1} of the shifted Cholesky G + shift I = R^H R,
+                           the building block of CholeskyQR2
+                           orthonormalization (solver.kbdm);
 * :func:`takagi_small`   — Takagi factorization M = W diag(s) W^T of a small
-                           complex-symmetric matrix (M M^H eigh + phase fix).
-* :func:`hermitian_solve`— solve (H + ridge) x = b for Hermitian PSD H via
-                           eigh; replaces Cholesky.
+                           complex-symmetric matrix (eigh of M M^H + phase
+                           fix);
+* :func:`hermitian_solve`— (H + shift I) x = b for Hermitian PSD H by
+                           Cholesky with a Tikhonov shift.
 
 All batched over leading dims.
-
-On the TPU backend the eigh-based paths dispatch to the rows-only Pallas
-kernels in ops.pallas_linalg (one-sided Jacobi SVD for Takagi's Gram
-eigendecomposition, shifted CholeskyQR2 for orthonormalization, Cholesky
-with Tikhonov shift for the Hermitian solve) — the eigh formulations below
-remain the CPU path and the numerical cross-check.
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
 
-from . import jacobi
-from .jacobi import _tpu_backend
-from .cplx import (CArr, cabs, cangle, cmatmul, chermitian, cmul, conj,
-
-                   cscale_cols, csub, cexp)
+from .cplx import CArr, cangle, cexp, chermitian, cmatmul, cmul, conj, \
+    cscale_cols
 
 
+def _to_c(x: CArr) -> jax.Array:
+    return jax.lax.complex(x.re, x.im)
 
-import functools as _functools
-_es = _functools.partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
 
-def lowner_orth(y: CArr, rcond: float = 1e-10, sweeps: int = 8):
-    """Orthonormalize the columns of y (..., m, k) -> q (..., m, k).
+def _from_c(z: jax.Array) -> CArr:
+    return CArr(jnp.real(z), jnp.imag(z))
 
-    q = y @ w @ diag(lam^-1/2) where y^H y = w diag(lam) w^H.  Columns of q
-    beyond the numerical rank (lam <= lam_max * rcond) are zeroed.  Returns
-    (q, lam) with lam sorted descending (lam = squared column norms along the
-    principal axes — useful as a convergence/rank diagnostic).
+
+def _shifted_cholesky(h: CArr, shift) -> jax.Array:
+    """Lower L (complex64) with (h + h^H)/2 + shift*I = L L^H."""
+    hc = _to_c(h)
+    hc = 0.5 * (hc + jnp.conj(jnp.swapaxes(hc, -1, -2)))
+    eye = jnp.eye(hc.shape[-1], dtype=hc.dtype)
+    shift = jnp.asarray(shift, jnp.float32)[..., None, None]
+    return jnp.linalg.cholesky(hc + shift * eye)
+
+
+def _mean_abs_diag(h: CArr) -> jax.Array:
+    return jnp.mean(jnp.abs(jnp.diagonal(h.re, axis1=-2, axis2=-1)), axis=-1)
+
+
+def cholqr_rinv(g: CArr, shift: jax.Array) -> CArr:
+    """Upper-triangular R^{-1} with G + shift*I = R^H R, batched.
+
+    g : CArr (..., k, k) Hermitian PSD (e.g. y^H y);  shift : (...,)
+    absolute diagonal shift.  Q = y @ R^{-1} orthonormalizes y (CholeskyQR).
     """
-    g = cmatmul(chermitian(y), y)
-    # enforce exact Hermitian symmetry before Jacobi
-    g = CArr(0.5 * (g.re + jnp.swapaxes(g.re, -1, -2)),
-             0.5 * (g.im - jnp.swapaxes(g.im, -1, -2)))
-    lam, w = jacobi.eigh(g, sweeps=sweeps)
-    lam_max = lam[..., :1]
-    good = lam > lam_max * rcond
-    inv = jnp.where(good, jax.lax.rsqrt(jnp.maximum(lam, 1e-30)), 0.0)
-    q = cscale_cols(cmatmul(y, w), CArr(inv, jnp.zeros_like(inv)))
-    return q, lam
+    low = _shifted_cholesky(g, shift)                  # R = L^H
+    eye = jnp.broadcast_to(jnp.eye(low.shape[-1], dtype=low.dtype), low.shape)
+    # R^{-1} = (L^H)^{-1}: solve L^H X = I
+    return _from_c(jax.lax.linalg.triangular_solve(
+        low, eye, left_side=True, lower=True, transpose_a=True,
+        conjugate_a=True))
 
 
-def _mean_diag(g: CArr) -> jax.Array:
-    return jnp.mean(jnp.abs(jnp.diagonal(g.re, axis1=-2, axis2=-1)), axis=-1)
-
-
-def takagi_small(m: CArr, sweeps: int = 8):
+def takagi_small(m: CArr):
     """Takagi factorization of a complex-symmetric (..., k, k) matrix.
 
     Returns (w, s): unitary w (..., k, k) and singular values s (..., k)
@@ -70,67 +70,38 @@ def takagi_small(m: CArr, sweeps: int = 8):
     |t| = s; rotating u by exp(i*angle(t)/2) makes t real positive, which is
     exactly the Takagi condition.  (Degenerate pairs are generically split by
     the KBDM spectra; exact ties would need an extra 2x2 rotation.)
-
-    On TPU the (s, u) pair comes from the one-sided Jacobi SVD kernel
-    (pallas_linalg.gram_svd), which never forms m m^H at all.
     """
-    if _tpu_backend():
-        from . import pallas_linalg
-        s, u = pallas_linalg.gram_svd(m, sweeps=sweeps)
-    else:
-        mh = cmatmul(m, chermitian(m))
-        mh = CArr(0.5 * (mh.re + jnp.swapaxes(mh.re, -1, -2)),
-                  0.5 * (mh.im - jnp.swapaxes(mh.im, -1, -2)))
-        lam, u = jacobi.eigh(mh, sweeps=sweeps)
-        s = jnp.sqrt(jnp.maximum(lam, 0.0))
+    # eigh symmetrizes its input; eigenvalues ascending -> flip
+    lam, u = jnp.linalg.eigh(_to_c(cmatmul(m, chermitian(m))))
+    s = jnp.sqrt(jnp.maximum(lam[..., ::-1], 0.0))
+    u = _from_c(u[..., ::-1])
     # t_k = u_k^H m conj(u_k)
     mu = cmatmul(m, conj(u))                     # (..., k, k)
-    t = jnp.sum(cmul(conj(u), mu).re, axis=-2), \
-        jnp.sum(cmul(conj(u), mu).im, axis=-2)
-    t = CArr(*t)                                  # (..., k)
+    prod = cmul(conj(u), mu)
+    t = CArr(jnp.sum(prod.re, axis=-2), jnp.sum(prod.im, axis=-2))
     half = CArr(jnp.zeros_like(t.re), 0.5 * cangle(t))
-    phase = cexp(half)                            # e^{i angle(t)/2}
-    w = cscale_cols(u, phase)
+    w = cscale_cols(u, cexp(half))               # u_k e^{i angle(t_k)/2}
     return w, s
 
 
 def hermitian_solve(h: CArr, b: CArr, ridge=0.0,
-                    rcond: float = 1e-12, sweeps: int = 8) -> CArr:
-    """Solve (h + ridge*I) x = b for Hermitian PSD h (..., k, k), b (..., k).
+                    rcond: float = 1e-12) -> CArr:
+    """Solve (h + shift*I) x = b for Hermitian PSD h (..., k, k), b (..., k)
+    by Cholesky, with the Tikhonov shift  ridge + rcond * mean|diag(h)|.
 
-    ridge may be a float or an array broadcastable to the batch shape
-    (possibly with a trailing singleton axis, e.g. (..., 1)).
-
-    CPU: eigh-based x = w diag(1/(lam + ridge)) w^H b with eigenvalues
-    below lam_max * rcond truncated (pseudo-inverse).
-    TPU: Cholesky with Tikhonov shift ridge + rcond * mean|diag| — same
-    regularization role (bounded solve for near-singular h, e.g. duplicate
-    poles); for well-separated spectra the two agree to f32 rounding.
+    ridge may be a float or an array broadcastable to the batch shape,
+    possibly with a trailing singleton axis (..., 1).  The shift keeps the
+    solve bounded for near-singular h (e.g. duplicate poles).  Cholesky's
+    rounding is invariant to a diagonal scaling of h, which the graded
+    normal matrices of the Gauss-Newton refinement need: an eigenvalue-
+    truncated pseudo-inverse loses their small, well-determined directions.
     """
-    hsym = CArr(0.5 * (h.re + jnp.swapaxes(h.re, -1, -2)),
-                0.5 * (h.im - jnp.swapaxes(h.im, -1, -2)))
-    if _tpu_backend():
-        from . import pallas_linalg
-        r = jnp.asarray(ridge, h.re.dtype)
-        if r.ndim == b.re.ndim:           # (..., 1)-shaped relative ridge
-            r = r[..., 0]
-        shift = r + rcond * _mean_diag(hsym)
-        return pallas_linalg.chol_solve(hsym, b, shift)
-    lam, w = jacobi.eigh(hsym, sweeps=sweeps)
-    lam_max = jnp.maximum(lam[..., :1], 1e-30)
-    good = lam > lam_max * rcond
-    # clamp lam at 0: for near-singular h the smallest eigenvalues are f32
-    # rounding noise and can be slightly negative — 1/(lam + tiny ridge)
-    # would blow up with the wrong sign
-    inv = jnp.where(good, 1.0 / (jnp.maximum(lam, 0.0) + ridge + 1e-30), 0.0)
-    # x = w @ (inv * (w^H b))
-    wb = _es('...ik,...i->...k', w.re, b.re) + \
-         _es('...ik,...i->...k', w.im, b.im)
-    wb_im = _es('...ik,...i->...k', w.re, b.im) - \
-            _es('...ik,...i->...k', w.im, b.re)
-    sr, si = inv * wb, inv * wb_im
-    x_re = _es('...ik,...k->...i', w.re, sr) - \
-           _es('...ik,...k->...i', w.im, si)
-    x_im = _es('...ik,...k->...i', w.re, si) + \
-           _es('...ik,...k->...i', w.im, sr)
-    return CArr(x_re, x_im)
+    r = jnp.asarray(ridge, jnp.float32)
+    if r.ndim == b.re.ndim:               # (..., 1)-shaped relative ridge
+        r = r[..., 0]
+    low = _shifted_cholesky(h, r + rcond * _mean_abs_diag(h))
+    y = jax.lax.linalg.triangular_solve(low, _to_c(b)[..., None],
+                                        left_side=True, lower=True)
+    x = jax.lax.linalg.triangular_solve(low, y, left_side=True, lower=True,
+                                        transpose_a=True, conjugate_a=True)
+    return _from_c(x[..., 0])

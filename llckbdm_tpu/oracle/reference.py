@@ -1,10 +1,10 @@
 """CPU float64 oracle for the KBDM / LL-KBDM pipeline.
 
-This module is the ground-truth specification of the algorithms the TPU
+This module is the ground-truth specification of the algorithms the device
 framework implements.  It is written *from the mathematical spec* (SURVEY.md
 §3.1-3.2; Mandelshtam's Filter Diagonalization Method family), not ported from
 the reference repo (whose mount is empty — SURVEY.md §0).  Everything runs in
-float64/complex128 on CPU with scipy/sklearn, and every TPU kernel is tested
+float64/complex128 on CPU with scipy/sklearn, and every device kernel is tested
 against it (accuracy gate: 1e-8 relative on pole parameters, BASELINE.json:5).
 
 Line-list convention (used across the whole framework, SURVEY.md §2):

@@ -7,8 +7,8 @@ Three entry points, increasing in scale:
 * :func:`fit_grid_sharded`    — voxel rows partitioned over the mesh 'data'
                                 axis with NamedSharding + jit; XLA runs each
                                 shard independently (embarrassingly parallel —
-                                zero collectives on the hot path, DP over
-                                ICI+DCN).  Config 5's 256x256 grid path.
+                                zero collectives on the hot path).
+                                Config 5's 256x256 grid path.
 * :func:`refine_grid_timesharded` — the Gauss-Newton refinement with the
                                 signal TIME axis additionally split over the
                                 'time' mesh axis inside shard_map: the normal
@@ -33,7 +33,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
 from ..ops.cplx import CArr
-from ..ops.jacobi import backend_name, force_backend
+from ..platform import force_platform, platform
 from ..pipeline.llckbdm import ClusterStats, LlcKbdmConfig, llc_kbdm_fit
 from ..signals import LineList
 from ..solver.refine import RefineConfig, RefinedLines, refine_lines
@@ -43,28 +43,28 @@ from ..utils.df import DF, DFC
 
 # All jitted entry points below are lru_cached on their static arguments:
 # a fresh jax.jit(functools.partial(...)) per call would RETRACE AND
-# RECOMPILE on every invocation (jit caches on callable identity) — the
-# round-3 scaling benchmark spent >10 min of CPU on exactly that.
+# RECOMPILE on every invocation (jit caches on callable identity) — a
+# scaling benchmark once spent >10 min of CPU on exactly that.
 
 
 @functools.lru_cache(maxsize=64)
-def _fit_grid_jit(dwell: float, cfg: LlcKbdmConfig, backend: str):
-    # backend in the key + pinned during tracing (see ops.jacobi.force_backend)
+def _fit_grid_jit(dwell: float, cfg: LlcKbdmConfig, plat: str):
+    # platform in the key + pinned during tracing (see llckbdm_tpu.platform)
     def traced(c):
-        with force_backend(backend):
+        with force_platform(plat):
             return llc_kbdm_fit(c, dwell, cfg)
     return jax.jit(traced)
 
 
 def fit_grid(c: CArr, dwell: float, cfg: LlcKbdmConfig):
     """Jitted LL-KBDM over a voxel batch c (..., N) on the local device."""
-    return _fit_grid_jit(dwell, cfg, backend_name())(c)
+    return _fit_grid_jit(dwell, cfg, platform())(c)
 
 
 @functools.lru_cache(maxsize=64)
-def _refine_jit(dwell: float, cfg: RefineConfig, backend: str):
+def _refine_jit(dwell: float, cfg: RefineConfig, plat: str):
     def traced(c: DFC, lines: LineList) -> RefinedLines:
-        with force_backend(backend):
+        with force_platform(plat):
             return refine_lines(c, lines, dwell, cfg)
     return jax.jit(traced)
 
@@ -74,13 +74,13 @@ def refine_grid(c: DFC, lines: LineList, dwell: float,
     """Jitted double-float GN refinement over a voxel batch on the local
     device (the gate-meeting stage; used per-shard by parallel.checkpoint
     when the runner is configured with a RefineConfig)."""
-    return _refine_jit(dwell, cfg, backend_name())(c, lines)
+    return _refine_jit(dwell, cfg, platform())(c, lines)
 
 
-def _mesh_backend(mesh: Mesh) -> str:
-    """Trace-time backend for computations placed on this mesh's devices
-    (which may differ from the process default — e.g. a CPU test mesh in a
-    TPU-visible process)."""
+def _mesh_platform(mesh: Mesh) -> str:
+    """Trace-time platform for computations placed on this mesh's devices
+    (which may differ from the process default — e.g. a CPU mesh in a
+    GPU-visible process)."""
     return mesh.devices.flat[0].platform
 
 
@@ -103,10 +103,10 @@ def _fit_grid_sharded_jit(dwell: float, cfg: LlcKbdmConfig, mesh: Mesh):
     out_spec = (LineList(*([row] * 5)), LineList(*([row] * 5)),
                 row, ClusterStats(*([row] * 4)))
 
-    backend = _mesh_backend(mesh)
+    plat = _mesh_platform(mesh)
 
     def local(c_loc: CArr):
-        with force_backend(backend):
+        with force_platform(plat):
             return llc_kbdm_fit(c_loc, dwell, cfg)
 
     return jax.jit(shard_map(local, mesh=mesh, in_specs=(spec_c,),
@@ -131,11 +131,11 @@ def fit_grid_sharded(c: CArr, dwell: float, cfg: LlcKbdmConfig, mesh: Mesh):
 @functools.lru_cache(maxsize=64)
 def _refine_timesharded_jit(dwell: float, mesh: Mesh, cfg: RefineConfig,
                             chunk: int):
-    backend = _mesh_backend(mesh)
+    plat = _mesh_platform(mesh)
 
     def local(c_loc: DFC, lines_loc: LineList) -> RefinedLines:
         t0 = chunk * jax.lax.axis_index("time")
-        with force_backend(backend):
+        with force_platform(plat):
             return refine_lines(c_loc, lines_loc, dwell, cfg,
                                 axis_name="time", t_offset=t0)
 

@@ -1,9 +1,9 @@
 """Device-mesh construction and multi-host initialization.
 
 Axis convention (SURVEY.md §2 parallel-axis table):
-  'data'  — voxel-batch row partitioning (DP; across hosts via DCN and
-            chips via ICI — outermost so each host keeps a contiguous
-            voxel block and collectives along 'time' stay intra-host)
+  'data'  — voxel-batch row partitioning (DP; outermost, so each host
+            keeps a contiguous voxel block and collectives along 'time'
+            stay within a host)
   'time'  — optional signal/time-axis partitioning used by the refinement
             normal equations (the amplitude-RHS exchange, BASELINE.json:5)
 """
@@ -21,8 +21,9 @@ def distributed_init(coordinator: str | None = None,
                      process_id: int | None = None) -> None:
     """Initialize multi-host JAX (no-op when single-process).
 
-    On a real pod the arguments come from the launcher environment; jax
-    auto-detects on Cloud TPU so all-None is the common call.
+    For several hosts, pass the coordinator address ('host:port'), the
+    process count and this process's id (nothing in the environment
+    supplies them).  One process drives all the cards of its host.
     """
     if num_processes is not None and num_processes > 1 or coordinator:
         jax.distributed.initialize(coordinator_address=coordinator,
@@ -34,8 +35,7 @@ def make_mesh(axis_sizes: dict[str, int], devices=None) -> Mesh:
     """Build a named mesh, e.g. make_mesh({'data': 4, 'time': 2}).
 
     Axis order in the dict is the device-grid order: the LAST axis varies
-    fastest, so put 'time' last to keep its collectives on adjacent chips
-    (ICI neighbors on a real slice).
+    fastest.
     """
     devices = np.asarray(devices if devices is not None else jax.devices())
     shape = tuple(axis_sizes.values())

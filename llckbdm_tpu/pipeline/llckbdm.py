@@ -15,9 +15,13 @@ import numpy as np
 
 from ..ops.cplx import CArr
 from ..ops.dbscan import compact_labels, dbscan, dbscan_1d, masked_median
-from ..ops.jacobi import _tpu_backend, backend_name, force_backend
+from ..platform import force_platform, platform
 from ..signals import LineList
 from ..solver.kbdm import KbdmConfig, kbdm_sweep
+
+# f32 HIGHEST: on the GPU a default-precision f32 einsum may run in TF32,
+# and E[x^2] - mean^2 cancels.
+_es = functools.partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
 
 
 class ClusterStats(NamedTuple):
@@ -57,8 +61,8 @@ def _masked_std(values: jax.Array, member: jax.Array) -> jax.Array:
     """Population std of values[i] over member[:, c] > 0, per cluster c."""
     cnt = jnp.sum(member, axis=0)
     safe = jnp.maximum(cnt, 1.0)
-    mean = jnp.einsum("nc,n->c", member, values) / safe
-    var = jnp.einsum("nc,n->c", member, values * values) / safe - mean ** 2
+    mean = _es("nc,n->c", member, values) / safe
+    var = _es("nc,n->c", member, values * values) / safe - mean ** 2
     return jnp.where(cnt > 0, jnp.sqrt(jnp.maximum(var, 0.0)), 0.0)
 
 
@@ -83,8 +87,8 @@ def _consolidate_one(pool: LineList, member: jax.Array):
     mask = (counts > 0).astype(pool.amplitude.dtype)
 
     safe = jnp.maximum(counts, 1.0)
-    cbar = jnp.einsum("nc,n->c", member, jnp.cos(pool.phase)) / safe
-    sbar = jnp.einsum("nc,n->c", member, jnp.sin(pool.phase)) / safe
+    cbar = _es("nc,n->c", member, jnp.cos(pool.phase)) / safe
+    sbar = _es("nc,n->c", member, jnp.sin(pool.phase)) / safe
     r = jnp.minimum(jnp.hypot(cbar, sbar), 1.0)
     circ_std = jnp.sqrt(jnp.maximum(-2.0 * jnp.log(jnp.maximum(r, 1e-9)),
                                     0.0))
@@ -112,17 +116,12 @@ def llc_kbdm_fit(c: CArr, dwell: float, cfg: LlcKbdmConfig):
     feats = transform_line_lists(flat, dwell, cfg.damping_weight)
     valid = flat.mask > 0.5
 
-    # backend-dependent clustering kernel (trace-time choice): with the
-    # default 1-D feature space (damping_weight == 0) the sorted
-    # O(n log n) dbscan_1d wins on CPU, but on TPU every sort/scan lowers
-    # to multi-pass bitonic/sequential code with a measured ~35 ms floor
-    # at bench shapes — there the O(n^2) matrix kernel's fully-parallel
-    # VPU ops are 3x faster (measured 107 ms vs 35 ms per 512-voxel
-    # launch).  Semantics are identical in general position (label-exact,
-    # tested); the kernels can only differ on pairs whose distance is
-    # EXACTLY eps after rounding (see ops.dbscan.dbscan_1d docstring), so
-    # backend choice is observable only on such contrived ties.
-    use_1d = cfg.damping_weight == 0.0 and not _tpu_backend()
+    # With the default 1-D feature space (damping_weight == 0) the sorted
+    # O(n log n) dbscan_1d replaces the O(n^2) matrix kernel.  Semantics
+    # are identical in general position (label-exact, tested); the kernels
+    # can only differ on pairs whose distance is EXACTLY eps after rounding
+    # (see ops.dbscan.dbscan_1d).
+    use_1d = cfg.damping_weight == 0.0
 
     def one_voxel(feats_v, valid_v, pool_v):
         if use_1d:
@@ -143,13 +142,12 @@ def llc_kbdm_fit(c: CArr, dwell: float, cfg: LlcKbdmConfig):
 
 
 @functools.lru_cache(maxsize=64)
-def _llc_kbdm_jit(dwell: float, cfg: LlcKbdmConfig, backend: str):
-    # backend is part of the cache key AND pinned during tracing: the
-    # trace-time _tpu_backend() branches (dbscan kernel choice here,
-    # use_bf16/orth_sk in kbdm_sweep) must match the devices this compiled
-    # function will run on even if the process default changes later.
+def _llc_kbdm_jit(dwell: float, cfg: LlcKbdmConfig, plat: str):
+    # the platform is part of the cache key AND pinned during tracing: the
+    # trace-time branch (the eigensolver kernel) must match the devices this
+    # compiled function runs on even if the process default changes later.
     def traced(c):
-        with force_backend(backend):
+        with force_platform(plat):
             return llc_kbdm_fit(c, dwell, cfg)
     return jax.jit(traced)
 
@@ -184,7 +182,7 @@ def llc_kbdm(data: np.ndarray, dwell: float, m_range, p: int = 24,
                         kbdm=KbdmConfig(p=p))
     c = CArr(jnp.asarray(batch.real, jnp.float32),
              jnp.asarray(batch.imag, jnp.float32))
-    cons, pooled, counts, _stats = _llc_kbdm_jit(dwell, cfg, backend_name())(c)
+    cons, pooled, counts, _stats = _llc_kbdm_jit(dwell, cfg, platform())(c)
 
     if refine_iters > 0:
         from ..solver.refine import RefineConfig, refine_lines, refined_to_np

@@ -1,7 +1,7 @@
-"""TPU-native KBDM solver (oracle counterpart: oracle.reference.kbdm).
+"""Device KBDM solver (oracle counterpart: oracle.reference.kbdm).
 
-Design (SURVEY.md §7, BASELINE.json:5 north star) — NOT a port of the
-LAPACK-based oracle, but the same math restructured for the MXU:
+Not a port of the LAPACK-based oracle, but the same math restructured for
+batched dense kernels (SURVEY.md §7):
 
 * The truncated SVD of the m x m Hankel U0 is computed by **randomized
   subspace iteration + Rayleigh-Ritz** (a few U0-matmuls on m x k blocks)
@@ -9,11 +9,11 @@ LAPACK-based oracle, but the same math restructured for the MXU:
   the Rayleigh-Ritz step is a k x k **Takagi** factorization, which makes the
   right singular block exactly conj(left) and the reduced matrix exactly
   complex-symmetric.
-* The reduced p x p eigenproblem is solved by the complex-symmetric Jacobi
-  kernel (ops.jacobi.eig_cs) — XLA has no nonsymmetric eig on TPU at all.
+* The reduced p x p eigenproblem is solved by the batched complex-symmetric
+  Jacobi eigensolver (ops.jacobi.eig_cs; a Pallas Triton kernel on the GPU).
 * Vandermonde least-squares amplitudes use the closed-form geometric-series
   Gram matrix (O(p^2) instead of O(N p^2)) plus a chunked power-scan for the
-  right-hand side, solved via the Jacobi eigh.
+  right-hand side, solved by a shifted Cholesky factorization.
 * The multi-m sweep shares ONE materialized m_max Hankel operator: the m x m
   problem is the leading submatrix, selected by row/col masks, so the whole
   sweep is a single batched launch (SURVEY.md §7 hard part 4).
@@ -35,87 +35,39 @@ from ..ops.cplx import (CArr, cabs, cangle, cmul, conj, cpow_fixed,
                         cpowers, cwhere)
 from ..ops import jacobi
 from ..ops.hankel import hankel_matrices
-from ..ops.linalg import lowner_orth, takagi_small, hermitian_solve
+from ..ops.linalg import cholqr_rinv, hermitian_solve, takagi_small
 from ..signals import LineList
 
+_es = functools.partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
 
-
-
-import functools as _functools
-_es = _functools.partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
 
 @dataclass(frozen=True)
 class KbdmConfig:
     """Solver configuration (kwargs parity with the oracle: m, p, plus
-    TPU-specific knobs; SURVEY.md §5 'config system')."""
+    solver knobs; SURVEY.md §5 'config system')."""
 
     p: int = 24                  # truncation rank / line capacity per run
-    oversample: int = 8          # extra subspace dims for the randomized
-                                 # SVD.  Tuned r05: 6 and 4 FAIL the
-                                 # committed noiseless iters=3 chip gate
-                                 # (8.0e-7 / 1.9e-6 vs 1e-8) and save
-                                 # ~nothing (k^2 kernel cost 200 -> 193 ms
-                                 # sweep at k=20) — 8 is the measured
-                                 # minimum, like every other default here.
-    subspace_iters: int = 2      # power iterations (each ~ one U0 U0^H
-                                 # apply).  1 is ~18 ms/launch faster and
-                                 # passes every CPU gate and the iters=6
-                                 # in-bench gate (bench hit 1839 fits/s),
-                                 # but on the chip's bf16 power-iteration
-                                 # path it fails the committed noiseless
-                                 # iters=3 config-1 gate and the brain
-                                 # f32-stage line count — 2 keeps every
-                                 # committed gate green.
-    eigh_sweeps: int = 7         # Jacobi sweeps for Hermitian eigh /
-                                 # gram_svd.  Tuned r05
-                                 # (tools/tune_sweeps.py + follow-up):
-                                 # (10, 7) PASSES both committed config-1
-                                 # chip gates with margin IDENTICAL to
-                                 # (10, 8) (3.60e-9 vs 3.63e-9) and the
-                                 # brain m=512 chip gate; (10, 6) fails
-                                 # at 8.7e-8 and every pair that also
-                                 # cuts eig_sweeps fails — 7 is the
-                                 # measured gram_svd convergence cliff.
-    eig_sweeps: int = 10         # Jacobi sweeps for complex-symmetric eig.
-                                 # The (un-floored) production convergence
-                                 # counter shows the quadratic cliff lands
-                                 # exactly here: rel off-diag 9.3e-2 after
-                                 # 8 sweeps, 7.4e-7 after 10 (r05,
-                                 # tools/tune_sweeps.py) — production
-                                 # matrices NEED all 10.
+    oversample: int = 8          # extra subspace dims for the randomized SVD
+    subspace_iters: int = 2      # power iterations (each ~ one U0 U0^H apply)
+    eig_sweeps: int = 10         # Jacobi sweeps for the complex-symmetric
+                                 # eigensolve; the production convergence
+                                 # counter (with_diag=True) shows the
+                                 # quadratic cliff: production matrices
+                                 # need all 10
     final_orth_passes: int = 2   # CholeskyQR passes for the Rayleigh-Ritz
-                                 # basis (TPU path).  1 is ~20 ms faster
-                                 # at bench shapes and held the in-bench
-                                 # iters=6 gate (max err 1.7e-11), but the
-                                 # committed noiseless iters=3 chip gate
-                                 # (tests/test_tpu.py) failed with it —
-                                 # the f32 stage degrades just enough that
-                                 # 3 GN iterations no longer converge.  2
-                                 # keeps every committed gate green.
+                                 # basis (CholeskyQR2); the power-iteration
+                                 # bases take one
     rank_tol: float = 1e-6       # sigma truncation relative to sigma_max
     mu_log_max: float = 30.0     # clamp |mu|^N <= e^this (oracle parity)
     t2_min: float = 0.0          # keep lines with T2 > t2_min
     amp_min: float = 0.0         # keep lines with A >= amp_min
     gram_rcond: float = 1e-7     # pseudo-inverse cutoff in the Gram solve
     rhs_chunk: int = 128         # time-axis chunk for the V^H c scan
-    subspace_bf16: bool = True   # TPU: run the power-iteration phase in
-                                 # bf16 (the basis only seeds Rayleigh-Ritz,
-                                 # which runs f32-HIGHEST on a final f32
-                                 # CholeskyQR2 basis); halves the dominant
-                                 # HBM traffic.  Ignored on CPU.
-    mxu_precision: str = "highest"  # precision of the SWEEP's f32 MXU
-                                 # stages (applies + gram/mix einsums):
-                                 # "highest" = bf16x6 passes (true-f32),
-                                 # "high" = bf16x3.  Measured r05
-                                 # (tools/precision_gate.py, chip): "high"
-                                 # PASSES both committed gates (noiseless
-                                 # iters=3: 1.4e-9) but the sweep time is
-                                 # UNCHANGED (216.3 vs 218.6 ms at V=512)
-                                 # — these stages are HBM-bound, not
-                                 # MXU-pass-bound, so fewer passes buy
-                                 # nothing.  Default stays "highest" for
-                                 # the extra numerical margin at zero
-                                 # cost.  _poles_to_lines and refinement
+    mxu_precision: str = "highest"  # precision of the sweep's f32
+                                 # matmul stages (applies + gram/mix
+                                 # einsums): "highest" = true f32, "high" =
+                                 # the backend's faster reduced-precision
+                                 # passes.  _poles_to_lines and refinement
                                  # always run HIGHEST.
     seed: int = 0                # subspace sketch seed
 
@@ -160,8 +112,7 @@ def _poles_to_lines(mu: CArr, keep, c: CArr, dwell: float, n: int,
     zsafe = cwhere(amp_valid[..., :, None] & amp_valid[..., None, :], z,
                    CArr(jnp.zeros_like(z.re), jnp.zeros_like(z.re)))
     # z^N by binary squaring (static N): ~2 log2(N) multiplies/element vs
-    # 5 VPU transcendentals for the exp(N log z) form — measured r05, the
-    # transcendental chain dominated this stage (27.4 ms isolated)
+    # 5 transcendentals per element for the exp(N log z) form
     zn = cpow_fixed(cwhere(cabs(zsafe) > 1e-30, zsafe,
                            CArr(jnp.ones_like(z.re), jnp.zeros_like(z.re))),
                     n)
@@ -218,7 +169,7 @@ def _poles_to_lines(mu: CArr, keep, c: CArr, dwell: float, n: int,
     b = CArr(br * jnp.where(amp_valid, 1.0, 0.0),
              bi * jnp.where(amp_valid, 1.0, 0.0))
 
-    d = hermitian_solve(g, b, rcond=cfg.gram_rcond, sweeps=cfg.eigh_sweeps)
+    d = hermitian_solve(g, b, rcond=cfg.gram_rcond)
     amp = cabs(d)
     phase = cangle(d)
 
@@ -271,7 +222,7 @@ def kbdm_sweep(c: CArr, dwell: float, m_values: Sequence[int],
     h0 = hankel_matrices(c, m_max)            # (..., m_max, m_max)
     # U1 is never materialized: the reduced-matrix step derives U1 applies
     # from U0 ones via the Hankel shift structure (see below) — halves the
-    # operator's HBM residency and removes the second gather.
+    # operator's device-memory residency and removes the second gather.
     if _stop == "hankel":
         return h0
     masks = np.zeros((len(m_values), m_max), np.float32)
@@ -284,13 +235,12 @@ def kbdm_sweep(c: CArr, dwell: float, m_values: Sequence[int],
     # LAYOUT: sweep blocks live at (..., m_max, S, k) — S and k are
     # adjacent trailing axes, NOT a leading broadcast axis.  Two reasons:
     # * every Hankel apply reshapes to (..., m_max, S*k) and runs as ONE
-    #   matmul per voxel, so h is read from HBM once — the former
-    #   (S, ..., m, k) layout broadcast h over S and re-read its 537 MB
-    #   S=35 times per apply (in-context ablation: the subspace block was
-    #   156 ms of the 272 ms sweep, tools/ablate_sweep.py);
-    # * the (..., S) batch reaches every Pallas kernel flattened, so each
-    #   kernel is still traced/compiled exactly once (the round-2 lesson:
-    #   a vmap over S compiled S Mosaic kernels, ~8 min).
+    #   matmul per voxel, so h is read from device memory once — an
+    #   (S, ..., m, k) layout would broadcast h over S and re-read it S
+    #   times per apply;
+    # * the (..., S) batch reaches the eigensolver kernel flattened, so it
+    #   is traced and compiled exactly once (a vmap over S would compile
+    #   one kernel per sweep entry).
     mk = jnp.asarray(masks.T)[:, :, None]     # (m_max, S, 1)
 
     def apply_op(h, x):
@@ -328,91 +278,23 @@ def kbdm_sweep(c: CArr, dwell: float, m_values: Sequence[int],
         return CArr(re, im)
 
     def orth_sk(y: CArr, passes: int) -> CArr:
-        """Orthonormalize the k columns of every (m, S)-block.
-
-        TPU: shifted CholeskyQR (ops.pallas_linalg.cholqr_rinv); one pass
-        per intermediate subspace iteration (the basis only needs a
-        bounded condition number there — Rayleigh-Ritz re-truncates), two
-        for the final basis.  CPU: Lowner orthogonalization."""
-        if not jacobi._tpu_backend():
-            ym = CArr(jnp.moveaxis(y.re, -2, -3), jnp.moveaxis(y.im, -2, -3))
-            q, _ = lowner_orth(ym, sweeps=cfg.eigh_sweeps)
-            return CArr(jnp.moveaxis(q.re, -3, -2), jnp.moveaxis(q.im, -3, -2))
-        from ..ops import pallas_linalg
+        """Orthonormalize the k columns of every (m, S)-block by shifted
+        CholeskyQR: one pass per intermediate subspace iteration (the
+        basis only needs a bounded condition number there — Rayleigh-Ritz
+        re-truncates), cfg.final_orth_passes for the final basis."""
         q = y
         for _ in range(passes):
             g = gram_sk(q, q)
-            g = CArr(0.5 * (g.re + jnp.swapaxes(g.re, -1, -2)),
-                     0.5 * (g.im - jnp.swapaxes(g.im, -1, -2)))
             shift = 3e-6 * jnp.mean(
                 jnp.abs(jnp.diagonal(g.re, axis1=-2, axis2=-1)), axis=-1)
-            rinv = pallas_linalg.cholqr_rinv(g, shift)
-            q = mix_sk(q, rinv)
+            q = mix_sk(q, cholqr_rinv(g, shift))
         return q
 
     x0 = CArr(omega[:, None, :] * mk, jnp.zeros((m_max, ns, k), c.re.dtype))
-    use_bf16 = cfg.subspace_bf16 and jacobi._tpu_backend()
-    if use_bf16:
-        # Power-iteration phase at bf16 storage + single-pass MXU matmuls:
-        # the intermediate bases only have to SPAN the dominant subspace
-        # (orthonormalized to bounded condition each step); every quantity
-        # that determines the final answer — the last CholeskyQR2 basis and
-        # the Rayleigh-Ritz projections — is recomputed below in
-        # f32/HIGHEST from an upcast y.  Halves the sweep's dominant HBM
-        # traffic (x blocks are V*m*S*k*2 floats ~ 3.4 GB at bench shapes).
-        bf = jnp.bfloat16
-        mkb = mk.astype(bf)
-        h0b = CArr(h0.re.astype(bf), h0.im.astype(bf))
-
-        def apply_fast(x):
-            xm = CArr(x.re * mkb, x.im * mkb)
-            j = xm.re.shape[-1]
-            flat = CArr(xm.re.reshape(*xm.re.shape[:-2], ns * j),
-                        xm.im.reshape(*xm.im.shape[:-2], ns * j))
-            mmf = lambda a, b: jnp.matmul(a, b,
-                                          preferred_element_type=jnp.float32)
-            y = CArr(mmf(h0b.re, flat.re) - mmf(h0b.im, flat.im),
-                     mmf(h0b.re, flat.im) + mmf(h0b.im, flat.re))
-            y = CArr(y.re.reshape(*y.re.shape[:-1], ns, j).astype(bf),
-                     y.im.reshape(*y.im.shape[:-1], ns, j).astype(bf))
-            return CArr(y.re * mkb, y.im * mkb)
-
-        def orth_fast(y):
-            esf = functools.partial(jnp.einsum,
-                                    preferred_element_type=jnp.float32)
-            gre = esf('...msk,...msl->...skl', y.re, y.re) + \
-                esf('...msk,...msl->...skl', y.im, y.im)
-            gim = esf('...msk,...msl->...skl', y.re, y.im) - \
-                esf('...msk,...msl->...skl', y.im, y.re)
-            g = CArr(0.5 * (gre + jnp.swapaxes(gre, -1, -2)),
-                     0.5 * (gim - jnp.swapaxes(gim, -1, -2)))
-            # larger shift than the f32 path: bf16 Gram noise is ~1e-2 rel
-            shift = 1e-4 * jnp.mean(
-                jnp.abs(jnp.diagonal(g.re, axis1=-2, axis2=-1)), axis=-1)
-            from ..ops import pallas_linalg
-            rinv = pallas_linalg.cholqr_rinv(g, shift)
-            re = esf('...msk,...skl->...msl', y.re, rinv.re) - \
-                esf('...msk,...skl->...msl', y.im, rinv.im)
-            im = esf('...msk,...skl->...msl', y.re, rinv.im) + \
-                esf('...msk,...skl->...msl', y.im, rinv.re)
-            return CArr(re.astype(bf), im.astype(bf))
-
-        # NOTE on further bf16: running the FIRST pass of the final
-        # orthonormalization at bf16 (or dropping to one power iteration)
-        # measured ~5-18 ms faster and held the iters=6 in-bench gate, but
-        # each broke the committed noiseless iters=3 config-1 chip gate —
-        # that gate pins the f32-stage quality floor; the bf16 region must
-        # end here.
-        yb = apply_fast(CArr(x0.re.astype(bf), x0.im.astype(bf)))
-        for _ in range(cfg.subspace_iters):
-            qb = orth_fast(yb)
-            yb = apply_fast(conj(qb))
-        y = CArr(yb.re.astype(c.re.dtype), yb.im.astype(c.re.dtype))
-    else:
-        y = apply_op(h0, x0)                  # (..., m, S, k)
-        for _ in range(cfg.subspace_iters):
-            q = orth_sk(y, passes=1)
-            y = apply_op(h0, conj(q))
+    y = apply_op(h0, x0)                      # (..., m, S, k)
+    for _ in range(cfg.subspace_iters):
+        q = orth_sk(y, passes=1)
+        y = apply_op(h0, conj(q))
     if _stop == "powiter":
         return y
     q = orth_sk(y, passes=cfg.final_orth_passes)
@@ -426,7 +308,7 @@ def kbdm_sweep(c: CArr, dwell: float, m_values: Sequence[int],
                    0.5 * (m_small.im + jnp.swapaxes(m_small.im, -1, -2)))
     if _stop == "m_small":
         return m_small
-    w, sig = takagi_small(m_small, sweeps=cfg.eigh_sweeps)
+    w, sig = takagi_small(m_small)
     if _stop == "takagi":
         return w, sig
     w_p = CArr(w.re[..., :p], w.im[..., :p])
@@ -436,13 +318,13 @@ def kbdm_sweep(c: CArr, dwell: float, m_values: Sequence[int],
     s_isq = jnp.where(keep_s, jax.lax.rsqrt(jnp.maximum(sig_p, 1e-30)), 0.0)
 
     # reduced matrix  U~ = S^-1/2 U_p^H U1 conj(U_p) S^-1/2.
-    # U1 conj(u_p) WITHOUT materializing or applying U1 (r05): the Hankel
+    # U1 conj(u_p) WITHOUT materializing or applying U1: the Hankel
     # shift structure gives, per sweep entry s with order m_s,
     #   (U1^(s) x)_i = (U0^(s) x)_{i+1}              for i <= m_s - 2
     #   (U1^(s) x)_{m_s-1} = sum_{j<m_s} c[m_s+j] x_j  (one new row)
     # and U0 conj(u_p) = U0 conj(q w_p) = t0 conj(w_p) — t0 already
     # exists from the Rayleigh-Ritz step.  This replaces the 8 m^2 S p V
-    # dense apply (plus the (V, m, m) U1 gather and its HBM residency)
+    # dense apply (plus the (V, m, m) U1 gather and its residency)
     # with an 8 m S k p V mix (k/m ~ 10x fewer flops), a row shift, and a
     # rank-1 correction row.  Algebraically exact; f32 rounding differs
     # from the dense apply only in summation order (gates re-proven).

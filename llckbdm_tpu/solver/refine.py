@@ -19,7 +19,7 @@ Precision structure of one Gauss-Newton step (what must be df, what not):
 
 * residual  r = c - model   — df, genuinely cancelling O(1) quantities;
 * powers    z^n             — df, relative error compounds over n;
-* normal matrix G = J^H J   — f32 einsums (MXU): only steers the step;
+* normal matrix G = J^H J   — f32 einsums: only steers the step;
 * rhs J^H r                 — TWO f32 einsums, J^H r_hi + J^H r_lo: once r
   is exact in df, the dot has no catastrophic cancellation — its f32
   rounding (~n*eps relative to the term magnitudes) perturbs the GN fixed
@@ -80,7 +80,6 @@ class RefineConfig:
                                  # Ignored in time-sharded mode.
     ridge: float = 1e-12         # relative Tikhonov in the GN solve
     max_step: float = 0.1        # clip on |delta z| per iteration
-    eigh_sweeps: int = 10
 
 
 def _dfc_bcast(x: DFC, shape) -> DFC:
@@ -201,7 +200,7 @@ def refine_lines(c: DFC, lines: LineList, dwell: float,
         dj_re = doz_re[..., None] * w_re - doz_im[..., None] * w_im
         dj_im = doz_re[..., None] * w_im + doz_im[..., None] * w_re
 
-        # Normal matrix G = J^H J blockwise (f32 einsums -> MXU).  No
+        # Normal matrix G = J^H J blockwise (f32 einsums).  No
         # concatenate BEFORE the dots: a concat-rooted fusion re-evaluates
         # the whole df producer chain per element on XLA:CPU (see module
         # docstring); the (2C, 2C) assembly happens on materialized blocks.
@@ -284,8 +283,7 @@ def refine_lines(c: DFC, lines: LineList, dwell: float,
         tr = jnp.sum(jnp.abs(jnp.diagonal(g.re, axis1=-2, axis2=-1)),
                      axis=-1, keepdims=True)
         ridge = np.float32(cfg.ridge) * tr / mask2.shape[-1]
-        delta = hermitian_solve(g, rhs, ridge=ridge, rcond=1e-14,
-                                sweeps=cfg.eigh_sweeps)
+        delta = hermitian_solve(g, rhs, ridge=ridge, rcond=1e-14)
 
         cc = mask.shape[-1]
         dd_re, dd_im = delta.re[..., :cc], delta.im[..., :cc]

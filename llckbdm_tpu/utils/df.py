@@ -1,8 +1,7 @@
-"""Double-float (float32-pair) arithmetic for TPU.
+"""Double-float (float32-pair) arithmetic.
 
-The target TPU has no float64 (probed: every f64 HLO fails), but the accuracy
-gate is 1e-8 relative on pole parameters (BASELINE.json:5) — beyond f32's
-1.2e-7 epsilon.  This module implements error-free-transformation arithmetic
+The accuracy gate is 1e-8 relative on pole parameters (BASELINE.json:5) —
+beyond f32's 1.2e-7 epsilon — while the bulk pipeline runs in f32.  This module implements error-free-transformation arithmetic
 (Dekker/Knuth two-sum / two-prod) on (hi, lo) float32 pairs, giving ~2^-48
 (~3.6e-15) effective relative precision.  It is used by the Gauss-Newton pole
 refinement stage (llckbdm_tpu.solver.refine) — the f32 bulk pipeline hands
@@ -18,8 +17,8 @@ error-free transforms (a double-float product lost its entire lo limb:
 2.5e-8 relative instead of 3e-15).  Every EFT below therefore pins its
 rounding-critical head value (the sum `s`, the product `p`) with
 ``lax.reduce_precision(x, 8, 23)`` — an f32 identity that is a compiler
-barrier against contraction on every backend (verified: restores 4e-15 on
-AVX2 CPU; free on TPU where the VPU is IEEE f32 without contraction).
+barrier against contraction (verified on an AVX2 CPU, and on the GPU by
+tests/test_gpu.py, which runs these transforms compiled for the card).
 
 All functions are elementwise and batch/shape polymorphic.
 """
@@ -209,8 +208,7 @@ def df_sum(a: DF, axis=None):
     dfc_mul), drove XLA:CPU compilation superlinear — a (4, 8, 256) df
     model-sum took >9 MINUTES to compile (optimization barriers did not
     help; the pass walking the sliced producer re-expands it per consumer).
-    The single Reduce op compiles in ~1 s and lowers on the TPU backend
-    (variadic reduce is core HLO).
+    The single Reduce op compiles in ~1 s (variadic reduce is core HLO).
     """
     if axis is None:
         a = DF(a.hi.ravel(), a.lo.ravel())
@@ -315,10 +313,8 @@ def dfc_powers(z: DFC, n: int) -> DFC:
     O(n) sequential chain.
 
     A two-level factorization z^(i*c+k) = (z^c)^i z^k (one full-size df
-    multiply instead of the log2(n) chained ones) was measured r05 and
-    REJECTED: refine at V=2048/iters=6 ran 115.6 ms factored vs 94.1 ms
-    with this chain — XLA fuses the chained where/multiply passes, while
-    the factored outer product materializes full-size broadcast operands.
+    multiply instead of the log2(n) chained ones) materializes full-size
+    broadcast operands, where XLA fuses the chained where/multiply passes.
     """
     nbits = max(1, int(np.ceil(np.log2(max(n, 2)))))
     # squarings: z^(2^j)

@@ -39,7 +39,7 @@ from llckbdm_tpu.oracle.reference import sample_signal
 cfg = LlcKbdmConfig(m_values=(16, 24), eps=5e-3, min_samples=2,
                     max_clusters=4,
                     kbdm=KbdmConfig(p=4, oversample=4, subspace_iters=1,
-                                    eigh_sweeps=4, eig_sweeps=6))
+                                    eig_sweeps=6))
 rng = np.random.default_rng(0)
 sigs = np.stack([sample_signal(np.array([[1.0, 0.05, -40.0 + v, 0.1],
                                          [0.7, 0.08, 55.0, -0.2]]),
@@ -81,8 +81,8 @@ from llckbdm_tpu.utils import df as D
 #   data 0: (proc0 dev, proc1 dev)      <- each time-pair spans processes
 #   data 1: (proc0 dev, proc1 dev)
 # so the refinement's normal-equation psum MUST run over the inter-process
-# (gloo/DCN-transport) path — the one collective in the framework, never
-# before exercised across a real process boundary (round-4 review next #4).
+# (gloo transport) path — the one collective in the framework, exercised
+# across a real process boundary.
 devs = sorted(jax.devices(), key=lambda d: d.id)
 grid = np.array([[devs[0], devs[2]], [devs[1], devs[3]]])
 assert all(len({d.process_index for d in row}) == 2 for d_row in [0, 1]
@@ -93,7 +93,7 @@ dwell, n, v = 1e-3, 64, 8
 cfg = LlcKbdmConfig(m_values=(16, 24), eps=5e-3, min_samples=2,
                     max_clusters=4,
                     kbdm=KbdmConfig(p=4, oversample=4, subspace_iters=1,
-                                    eigh_sweeps=4, eig_sweeps=6))
+                                    eig_sweeps=6))
 rcfg = RefineConfig(iters=2)
 rng = np.random.default_rng(0)
 sigs = np.stack([sample_signal(np.array([[1.0, 0.05, -40.0 + dv, 0.1],
@@ -221,7 +221,7 @@ def test_two_process_distributed_gridrunner(tmp_path):
     cfg = LlcKbdmConfig(m_values=(16, 24), eps=5e-3, min_samples=2,
                         max_clusters=4,
                         kbdm=KbdmConfig(p=4, oversample=4, subspace_iters=1,
-                                        eigh_sweeps=4, eig_sweeps=6))
+                                        eig_sweeps=6))
     rng = np.random.default_rng(0)
     sigs = np.stack([sample_signal(np.array([[1.0, 0.05, -40.0 + v, 0.1],
                                              [0.7, 0.08, 55.0, -0.2]]),

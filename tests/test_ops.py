@@ -1,4 +1,4 @@
-"""Unit tests for the TPU-native ops layer against numpy/scipy ground truth
+"""Unit tests for the ops layer against numpy/scipy ground truth
 (SURVEY.md §4: per-kernel unit tests vs oracle on random batches)."""
 import numpy as np
 import pytest
@@ -10,7 +10,7 @@ import jax.numpy as jnp
 from llckbdm_tpu.ops import cplx, jacobi
 from llckbdm_tpu.ops.cplx import CArr, from_np, to_np
 from llckbdm_tpu.ops.hankel import hankel_matrices
-from llckbdm_tpu.ops.linalg import hermitian_solve, lowner_orth, takagi_small
+from llckbdm_tpu.ops.linalg import cholqr_rinv, hermitian_solve, takagi_small
 
 
 def _rand_c(rng, *shape):
@@ -98,9 +98,8 @@ def test_hankel_apply_fft_matches_dense():
     operators') equals the materialized matmul for both shifts.
 
     NOTE the implicit form is a correctness-complete alternative but NOT
-    the shipped hot path: measured on v5e it is ~90x slower than the bf16
-    MXU apply at bench shapes (m=256, J=840) and within noise at m=512 —
-    see tools/bench_fft_hankel.py and the BASELINE.md record."""
+    the shipped hot path (the materialized matmul apply is); compare the
+    two with tools/bench_fft_hankel.py."""
     from llckbdm_tpu.ops.hankel import (fft_length, hankel_apply_fft,
                                         hankel_fft_spectrum)
     rng = np.random.default_rng(7)
@@ -118,28 +117,22 @@ def test_hankel_apply_fft_matches_dense():
 
 
 # ---------------------------------------------------------------------------
-# Jacobi eigensolvers
+# Cholesky factors and the complex-symmetric Jacobi eigensolver
 # ---------------------------------------------------------------------------
 
-def test_eigh_matches_scipy():
+@pytest.mark.parametrize("shape", [(10,), (3, 8)])
+def test_cholqr_rinv_matches_scipy_cholesky(shape):
+    """R^{-1} is the inverse of scipy's upper Cholesky factor of G + shift."""
     rng = np.random.default_rng(4)
-    a = _rand_c(rng, 10, 10)
-    a = a + a.conj().T  # Hermitian
-    w, v = jacobi.eigh(from_np(a), sweeps=12)
-    w = np.sort(np.asarray(w))
-    w_ref = np.sort(scipy.linalg.eigvalsh(a))
-    np.testing.assert_allclose(w, w_ref, rtol=1e-4, atol=1e-4)
-
-
-def test_eigh_batched():
-    rng = np.random.default_rng(5)
-    a = _rand_c(rng, 3, 8, 8)
-    a = a + np.swapaxes(a.conj(), -1, -2)
-    w, v = jacobi.eigh(from_np(a), sweeps=12)
-    for b in range(3):
-        np.testing.assert_allclose(np.sort(np.asarray(w[b])),
-                                   np.sort(scipy.linalg.eigvalsh(a[b])),
-                                   rtol=1e-4, atol=1e-4)
+    k = shape[-1]
+    y = _rand_c(rng, *shape[:-1], 3 * k, k)
+    g = np.swapaxes(y.conj(), -1, -2) @ y
+    shift = np.full(shape[:-1], 0.25, np.float32)
+    rinv = to_np(cholqr_rinv(from_np(g), shift))
+    gs = (g + 0.25 * np.eye(k)).reshape(-1, k, k)
+    for r, gb in zip(rinv.reshape(-1, k, k), gs):
+        want = np.linalg.inv(scipy.linalg.cholesky(gb, lower=False))
+        np.testing.assert_allclose(r, want, rtol=0, atol=2e-4)
 
 
 def test_eig_cs_matches_scipy():
@@ -158,18 +151,21 @@ def test_eig_cs_matches_scipy():
 
 
 # ---------------------------------------------------------------------------
-# linalg: orthogonalization, Takagi, Hermitian solve
+# linalg: CholeskyQR, Takagi, Hermitian solve
 # ---------------------------------------------------------------------------
 
-def test_lowner_orth_produces_orthonormal_basis():
+def test_cholqr2_produces_orthonormal_basis():
+    """Two shifted CholeskyQR passes (the kbdm_sweep final basis)."""
     rng = np.random.default_rng(7)
     y = _rand_c(rng, 20, 6)
-    q, _ = lowner_orth(from_np(y), sweeps=10)
-    qn = to_np(q)
-    np.testing.assert_allclose(qn.conj().T @ qn, np.eye(6),
-                               rtol=0, atol=5e-4)
+    q = y
+    for _ in range(2):
+        g = q.conj().T @ q
+        shift = np.float32(3e-6 * np.mean(np.abs(np.diag(g))))
+        q = q @ to_np(cholqr_rinv(from_np(g), shift))
+    np.testing.assert_allclose(q.conj().T @ q, np.eye(6), rtol=0, atol=5e-4)
     # span preserved: projection of y onto q recovers y
-    proj = qn @ (qn.conj().T @ y)
+    proj = q @ (q.conj().T @ y)
     np.testing.assert_allclose(proj, y, rtol=0, atol=1e-3)
 
 
@@ -178,7 +174,7 @@ def test_takagi_factorization():
     rng = np.random.default_rng(8)
     a = _rand_c(rng, 6, 6)
     a = 0.5 * (a + a.T)
-    u, s = takagi_small(from_np(a), sweeps=14)
+    u, s = takagi_small(from_np(a))
     un, sn = to_np(u), np.asarray(s)
     assert np.all(sn[:-1] >= sn[1:] - 1e-5)  # sorted descending
     recon = un @ np.diag(sn) @ un.T
@@ -193,6 +189,26 @@ def test_hermitian_solve():
     a = _rand_c(rng, 8, 8)
     h = a @ a.conj().T + 0.1 * np.eye(8)  # HPD
     b = _rand_c(rng, 8)
-    x = hermitian_solve(from_np(h), from_np(b), sweeps=14)
+    x = hermitian_solve(from_np(h), from_np(b))
     np.testing.assert_allclose(to_np(x), scipy.linalg.solve(h, b),
                                rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("ridge,rcond", [(0.5, 0.0), ("per-matrix", 0.0),
+                                         (0.0, 0.3)])
+def test_hermitian_solve_shift_is_tikhonov(ridge, rcond):
+    """The solve is (h + shift I) x = b with shift = ridge + rcond *
+    mean|diag h|; ridge may be a scalar or (..., 1)-shaped per matrix."""
+    rng = np.random.default_rng(10)
+    a = _rand_c(rng, 3, 8, 8)
+    h = a @ np.swapaxes(a.conj(), -1, -2) + 0.1 * np.eye(8)
+    b = _rand_c(rng, 3, 8)
+    if ridge == "per-matrix":
+        ridge = np.array([[0.5], [1.0], [2.0]], np.float32)
+    x = to_np(hermitian_solve(from_np(h), from_np(b), ridge=ridge,
+                              rcond=rcond))
+    shift = (np.broadcast_to(np.asarray(ridge).reshape(-1), (3,))
+             + rcond * np.mean(np.abs(np.einsum("bii->bi", h.real)), -1))
+    for i in range(3):
+        want = scipy.linalg.solve(h[i] + shift[i] * np.eye(8), b[i])
+        np.testing.assert_allclose(x[i], want, rtol=2e-3, atol=1e-4)

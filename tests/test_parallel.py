@@ -26,7 +26,7 @@ from llckbdm_tpu.utils import df as D
 CFG = LlcKbdmConfig(
     m_values=(16, 24, 32), eps=5e-3, min_samples=2, max_clusters=4,
     kbdm=KbdmConfig(p=4, oversample=4, subspace_iters=1,
-                    eigh_sweeps=4, eig_sweeps=6))
+                    eig_sweeps=6))
 
 
 @pytest.fixture(scope="module")

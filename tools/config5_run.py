@@ -1,10 +1,9 @@
 """Config 5 at size: 256x256 = 65,536 voxels through the checkpointed
-GridRunner on the local chip (BASELINE.json:11).
+GridRunner on the local card (BASELINE.json:11).
 
-Multi-host pods are unavailable in this environment (single real chip; see
-SURVEY.md §0/§7) — this executes the SAME code path a pod would run
-per-process (GridRunner with process_index/num_processes), at full grid
-size, on one chip, and records wall time + throughput + resume behavior.
+This executes the code path each host of a multi-host run executes
+(GridRunner with process_index/num_processes), at full grid size, on one
+card, and records wall time + throughput + resume behavior.
 
 Resume demonstration: kill the process mid-grid (e.g. run under
 `timeout 60`) — the O_EXCL/rename shard protocol guarantees every
@@ -12,7 +11,7 @@ completed shard survives — then re-run the same command: completed shards
 are skipped ("resumed" in the output) and gather() assembles the grid.
 
 Usage: python tools/config5_run.py [--voxels 65536] [--shard 512]
-       [--out /tmp/config5]
+       [--out results/config5]
 """
 from __future__ import annotations
 
@@ -68,11 +67,10 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--voxels", type=int, default=256 * 256)
     ap.add_argument("--shard", type=int, default=512)
-    ap.add_argument("--out", default="/tmp/config5")
+    ap.add_argument("--out", default="results/config5")
     ap.add_argument("--f32-only", action="store_true",
-                    help="skip the GN refinement stage (rounds 1-4 ran "
-                         "this; the default now runs the gate-meeting "
-                         "refined pipeline)")
+                    help="skip the GN refinement stage (the default "
+                         "runs the gate-meeting refined pipeline)")
     ap.add_argument("--gn-iters", type=int, default=6)
     ap.add_argument("--gate-voxels", type=int, default=8,
                     help="random sample of voxels on which the refined "
@@ -121,7 +119,7 @@ def main() -> None:
     if rcfg is not None and args.gate_voxels:
         # 1e-8 oracle gate asserted on a random voxel sample of the
         # AT-SIZE refined output (BASELINE.json:5 couples the pod-scale
-        # throughput target to the gate; round-4 review next #3)
+        # throughput target to the gate)
         from llckbdm_tpu.oracle import reference as oracle
         rng = np.random.default_rng(1)
         sample = rng.choice(args.voxels, size=args.gate_voxels,

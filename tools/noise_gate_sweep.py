@@ -6,7 +6,7 @@ noise sigma over 1e-4 .. 1e-2 on the config-1 family and at each level
 compares the device pipeline's refined lines (f32 fit + double-float GN)
 against the f64 oracle GN fixed point OF THE SAME NOISY SIGNAL — both
 solve the same estimation problem, so the comparison isolates basin /
-conditioning effects from the noise floor itself (round-4 review next #6).
+conditioning effects from the noise floor itself.
 
 Reported per level: max + median over voxels of the max line-parameter
 relative error, and the count of voxels where the device found all 5

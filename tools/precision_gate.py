@@ -1,12 +1,10 @@
-"""Gate-pinned experiment: Precision.HIGH (bf16x3) vs HIGHEST (bf16x6)
-for the sweep's f32 MXU stages (KbdmConfig.mxu_precision).
+"""Gate-pinned experiment: Precision.HIGH vs HIGHEST for the sweep's f32
+matmul stages (KbdmConfig.mxu_precision).
 
-The r05 roofline attributes ~30 ms of the 217 ms V=512 sweep to the
-final-orth/Rayleigh-Ritz einsums at HIGHEST; HIGH halves the MXU passes.
-Whether the resulting ~1e-6-level matmul rounding still clears the
-committed accuracy gates is an empirical question — this runs the same
-gate battery as tools/tune_sweeps.py for both settings and times the
-sweep.  Run: python tools/precision_gate.py
+Whether the reduced-precision matmul rounding still clears the committed
+accuracy gates is an empirical question — this runs the same gate battery
+as tools/tune_sweeps.py for both settings and times the sweep.
+Run: python tools/precision_gate.py
 """
 from __future__ import annotations
 
@@ -30,13 +28,12 @@ if __name__ == "__main__":
         # monkey-patch the config constructor used by gate_at
         orig = tune_sweeps.KbdmConfig
 
-        def make(p=16, eig_sweeps=10, eigh_sweeps=8, _prec=precision):
-            return orig(p=p, eig_sweeps=eig_sweeps, eigh_sweeps=eigh_sweeps,
-                        mxu_precision=_prec)
+        def make(p=16, eig_sweeps=10, _prec=precision):
+            return orig(p=p, eig_sweeps=eig_sweeps, mxu_precision=_prec)
 
         tune_sweeps.KbdmConfig = make
         t0 = time.perf_counter()
-        e1, e2, ms = gate_at(10, 8, refine_jit_cache={})
+        e1, e2, ms = gate_at(10, refine_jit_cache={})
         tune_sweeps.KbdmConfig = orig
         ok1 = "PASS" if e1 < 1e-8 else "FAIL"
         ok2 = "PASS" if e2 < 1e-8 else "FAIL"

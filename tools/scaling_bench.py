@@ -3,10 +3,10 @@
 Two measurements, printed as a markdown-ready summary:
 
 1. **DP scaling shape** — fit_grid_sharded solves/s on 1/2/4/8 virtual CPU
-   devices (multi-chip hardware is unavailable; the virtual mesh validates
-   the scaling SHAPE — per-device efficiency vs the 1-device run.  Real
-   ICI/DCN bandwidth does not matter here because the DP path has zero
-   collectives: each device owns its voxel rows end-to-end).
+   devices (the virtual mesh validates the scaling SHAPE — per-device
+   efficiency vs the 1-device run.  Interconnect bandwidth does not matter
+   here because the DP path has zero collectives: each device owns its
+   voxel rows end-to-end; chip_smoke.py --cards 4 runs it on four cards).
 2. **Collective overlap probe** — refine_grid_timesharded on a
    ('data' x 'time') mesh versus the identical per-shard compute with the
    psum REMOVED (refine on the local time chunk only).  The difference is
@@ -87,9 +87,9 @@ def dp_scaling(v=16, n=256, dwell=5e-4):
         mesh = make_mesh({"data": nd}, devices=jax.devices()[:nd])
         # collective count in the compiled DP program: the voxel-DP path
         # must be embarrassingly parallel (zero inter-device collectives),
-        # which is the property that DOES transfer to a real pod — virtual
+        # which is the property that DOES transfer to real cards — virtual
         # CPU devices share physical cores, so wall-clock here is expected
-        # ~flat and says nothing about real-chip scaling.  ONE compile per
+        # ~flat and says nothing about scaling on cards.  ONE compile per
         # device count: the compiled object is inspected AND timed.
         from llckbdm_tpu.parallel import grid as _grid
         cc = _grid._device_put_sharded(c, mesh)
@@ -114,7 +114,7 @@ def overlap_probe(v=16, n=256, dwell=5e-4):
                         max_clusters=8, kbdm=KbdmConfig(p=8))
     # 2 GN iterations: enough to contain the inter-iteration psum structure
     # being probed, while keeping the (unrolled-loop) CPU compile tractable
-    # — the round-3 probe at iters=3 never finished a 10-min budget.
+    # — a probe at iters=3 did not finish a 10-min budget.
     rcfg = RefineConfig(iters=2)
     sigs = make_grid(v, n, dwell)
     mesh = make_mesh({"data": 4, "time": 2})
@@ -175,12 +175,14 @@ if __name__ == "__main__":
     ov = overlap_probe()
     out = {"backend": jax.devices()[0].platform,
            "n_devices": len(jax.devices()),
-           "note": ("8 VIRTUAL cpu devices share 2 physical cores: only "
+           "note": ("VIRTUAL cpu devices share physical cores: only "
                     "the collective counts and overlap STRUCTURE transfer "
-                    "to a real pod; every wall-clock field here is "
+                    "to cards; every wall-clock field here is "
                     "virtual-mesh noise and must not be read as scaling"),
            "dp_scaling": dp, "overlap_probe": ov}
-    with open(os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), "SCALING.json"), "w") as f:
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "results", "scaling.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
         json.dump(out, f, indent=1)
-    print("# wrote SCALING.json")
+    print(f"# wrote {path}")

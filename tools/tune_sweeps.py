@@ -1,19 +1,13 @@
-"""Tune the Jacobi sweep budgets against MEASURED production convergence.
+"""Tune the Jacobi sweep budget against MEASURED production convergence.
 
-The two VPU-sequential blocks of the pipeline are the eig_cs kernel
-(cfg.eig_sweeps, default 10) and the gram_svd Takagi kernel
-(cfg.eigh_sweeps, default 8) — together ~45-50 ms of the 215 ms V=512
-sweep (BASELINE.md roofline).  Their iteration counts were set-and-forget
-defaults; the convergence counter that would justify fewer sweeps was
-floored at 0.0 by f32 cancellation until round 5 fixed the accumulation
-(ops/pallas_jacobi.py).  This tool, on the real chip:
+The sequential block of the pipeline is the eig_cs eigensolver
+(cfg.eig_sweeps, default 10).  This tool, on the card:
 
 1. measures the production eig_cs off-diagonal counter vs eig_sweeps
    (bench-shaped noisy signals, the matrices that matter);
-2. asserts the committed accuracy gates for candidate
-   (eig_sweeps, eigh_sweeps) pairs:
-     - config-1 NOISELESS, m=180, GN iters=3 (the tests/test_tpu.py gate —
-       the round-4 review's canary for f32-stage quality);
+2. asserts the committed accuracy gates for candidate eig_sweeps:
+     - config-1 NOISELESS, m=180, GN iters=3 (the tests/test_gpu.py gate,
+       the canary for f32-stage quality);
      - config-1 + 1e-4 noise, GN iters=6, 3 voxels (the in-bench gate);
 3. times the V=512 sweep at each candidate.
 
@@ -84,12 +78,12 @@ def counter_vs_sweeps():
         print(f"  eig_sweeps={s:2d}: {r:.3e}", flush=True)
 
 
-def gate_at(eig_sweeps, eigh_sweeps, refine_jit_cache={}):
+def gate_at(eig_sweeps, refine_jit_cache={}):
     """Returns (noiseless_iters3_err, noisy_iters6_err, sweep_ms_v512)."""
-    kb = KbdmConfig(p=16, eig_sweeps=eig_sweeps, eigh_sweeps=eigh_sweeps)
+    kb = KbdmConfig(p=16, eig_sweeps=eig_sweeps)
 
     # gate 1: config-1 noiseless, m=180, GN iters=3 (single-m fit like
-    # tests/test_tpu.py::test_tpu_config1_refined_hits_1e8_gate)
+    # tests/test_gpu.py::test_gpu_config1_refined_hits_1e8_gate)
     sig = oracle.sample_signal(FIVE_PEAK, N, DWELL)
     c1 = CArr(jnp.asarray(sig.real[None], jnp.float32),
               jnp.asarray(sig.imag[None], jnp.float32))
@@ -141,12 +135,12 @@ def gate_at(eig_sweeps, eigh_sweeps, refine_jit_cache={}):
 if __name__ == "__main__":
     print(f"# device: {jax.devices()[0].device_kind}")
     counter_vs_sweeps()
-    print("\n(eig_sweeps, eigh_sweeps) -> gates + V=512 sweep ms:")
-    for es, eh in ((10, 8), (8, 6), (6, 6), (6, 5), (5, 4)):
+    print("\neig_sweeps -> gates + V=512 sweep ms:")
+    for es in (10, 8, 6):
         t0 = time.perf_counter()
-        e1, e2, ms = gate_at(es, eh)
+        e1, e2, ms = gate_at(es)
         ok1 = "PASS" if e1 < 1e-8 else "FAIL"
         ok2 = "PASS" if e2 < 1e-8 else "FAIL"
-        print(f"  ({es:2d}, {eh}): noiseless iters=3 {e1:.2e} [{ok1}]  "
+        print(f"  {es:2d}: noiseless iters=3 {e1:.2e} [{ok1}]  "
               f"noisy iters=6 {e2:.2e} [{ok2}]  sweep {ms:7.1f} ms  "
               f"({time.perf_counter()-t0:.0f}s incl compile)", flush=True)
